@@ -52,7 +52,7 @@ EM_CELLS = [
     md("""# Alignment of EM sections
 
 This notebook demonstrates fine alignment of a stack of serial EM
-sections with **sofima_tpu** (the TPU-native rebuild of SOFIMA). It is
+sections with **sofima_tpu** (a JAX rebuild of SOFIMA). It is
 the twin of the reference `em_alignment.ipynb` recipe, running on
 synthetic data so it is fully self-contained:
 
@@ -68,12 +68,12 @@ synthetic data so it is fully self-contained:
    z-blocks in parallel and blend them with a low-z-resolution
    cross-block solution (`ReconcileCrossBlockMaps`).
 
-On TPU the flow and mesh kernels run as fused device programs; this
+On a GPU the flow and mesh kernels run as fused device programs; this
 notebook also runs fine on CPU (set `FORCE_CPU = True`)."""),
     code("""import os
 import numpy as np
 
-FORCE_CPU = bool(int(os.environ.get('SOFIMA_TPU_NB_CPU', '0')))
+FORCE_CPU = bool(int(os.environ.get('SOFIMA_NB_CPU', '0')))
 if FORCE_CPU:
   import jax
   jax.config.update('jax_platforms', 'cpu')
@@ -410,7 +410,7 @@ volume with **sofima_tpu** — the twin of the reference
     code("""import os
 import numpy as np
 
-FORCE_CPU = bool(int(os.environ.get('SOFIMA_TPU_NB_CPU', '0')))
+FORCE_CPU = bool(int(os.environ.get('SOFIMA_NB_CPU', '0')))
 if FORCE_CPU:
   import jax
   jax.config.update('jax_platforms', 'cpu')

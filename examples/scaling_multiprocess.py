@@ -5,11 +5,12 @@ sharded dense flow; tests/distributed_worker.py 'flow' mode) at
 increasing process counts, checks output totals agree across all
 counts, and reports the work partition per host.
 
-NOTE on throughput: this dev host exposes a single CPU core, so all
-"hosts" time-share one core and wall-clock numbers cannot demonstrate
-speedup — this script validates CORRECTNESS and partition balance at
-scale (the driver's multichip dryrun covers the sharded compile path).
-The analytic scaling model lives in docs/ROADMAP.md ("Scaling model").
+Every worker pins itself to the CPU (tests/distributed_worker.py), so
+the processes never compete for an accelerator: a JAX process reserves
+most of a GPU's memory when it first touches it, and one card holds one
+such process. The "hosts" time-share the machine's cores, so wall-clock
+numbers cannot demonstrate speedup — this script validates CORRECTNESS
+and partition balance at scale.
 
 Run: python examples/scaling_multiprocess.py [--max-procs 8]
 """

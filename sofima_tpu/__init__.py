@@ -1,8 +1,7 @@
-"""sofima_tpu: a TPU-native framework for optical-flow-based image
-montaging and alignment of large microscopy datasets.
+"""sofima_tpu: a JAX framework for optical-flow-based image montaging
+and alignment of large microscopy datasets.
 
-Built from scratch for TPU hardware (JAX/XLA/Pallas/pjit) with the
-capability surface of google-research/sofima: patch-based masked
+Built in JAX/XLA (jit, shard_map) with the capability surface of google-research/sofima: patch-based masked
 cross-correlation flow estimation, elastic spring-mesh relaxation,
 coordinate-map algebra, dense warping/rendering, and tile stitching —
 all as compiled device programs rather than host loops over CPU kernels.

@@ -249,13 +249,12 @@ def _invert_section(abs_map_xy: jnp.ndarray, src_start_yx: jnp.ndarray,
     ])
 
   if dim == 2 and shift_bound is not None:
-    # Gather-free sampling: on TPU every fixed-point iteration otherwise
-    # pays a per-pixel gather. The queries form a UNIT-SPACED grid at
+    # Gather-free sampling: every fixed-point iteration otherwise pays
+    # a per-pixel gather. The queries form a UNIT-SPACED grid at
     # integer origin `shift_origin` in map-index space (the invert_map /
     # pipeline geometry), and iterates stay within `shift_bound` nodes
     # of their own query — so bilinear sampling decomposes over a static
-    # integer-shift lattice of contiguous slices, exactly like the shift
-    # warp. Matches interp.sample's semantics: zero-weight taps are
+    # integer-shift lattice of contiguous slices. Matches interp.sample's semantics: zero-weight taps are
     # inert, any covered out-of-grid tap or NaN coordinate yields NaN.
     bnd = int(shift_bound)
     org_y, org_x = int(shift_origin[0]), int(shift_origin[1])
@@ -489,7 +488,7 @@ def invert_map(coord_map: np.ndarray, src_box: BoundingBox,
     return np.array(out)
 
   if compute == np.float64:
-    # float64 is a CPU path: TPUs have no native f64.
+    # float64 is a CPU path: accelerators run f64 slowly or not at all.
     with jax.enable_x64(), jax.default_device(jax.devices('cpu')[0]):
       inv = run()
   else:

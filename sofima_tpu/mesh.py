@@ -1,4 +1,4 @@
-"""Elastic spring-mesh relaxation (velocity Verlet + FIRE), TPU-native.
+"""Elastic spring-mesh relaxation (velocity Verlet + FIRE), on device.
 
 Provides the capability of the reference mesh solver
 (/root/reference/mesh.py): minimize the energy of a rectangular grid of
@@ -11,18 +11,19 @@ upscaling, fold-prevention force reformulation, and drift removal.
 Positions are relative: node (i, j) with value (Δx, Δy) sits at
 (i·stride + Δx, j·stride + Δy).
 
-TPU-first design:
+Design:
   * One generic stencil (`_spring_force`) expresses every spring family as
     a shifted-difference + scatter pair, instead of per-family unrolled
-    code; XLA fuses the whole force evaluation into a handful of VPU
-    kernels with no HBM round trips between families.
+    code; XLA fuses the whole force evaluation into a handful of
+    kernels with no device-memory round trips between families.
   * `relax_mesh` keeps the reference's host-side convergence loop and
     telemetry; `relax_mesh_fused` moves the *entire* convergence loop into
     a single `lax.while_loop` device program (no host syncs until
     convergence) — the high-performance path used by the processors and
     benchmarks.
   * The same step function powers the multi-chip spatially-sharded solver
-    in `sofima_tpu.parallel.mesh_sharding` (halo exchange over ICI).
+    in `sofima_tpu.parallel.mesh_sharding` (halo exchange between
+    devices).
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ from __future__ import annotations
 import collections.abc
 import dataclasses
 import functools
+import logging
 from typing import Sequence
 
-from absl import logging
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -254,9 +255,6 @@ def _make_step_fns(config: IntegrationConfig, mesh_force, prev_fn,
 
     a_norm = jnp.linalg.norm(a, axis=0, keepdims=True) + 1e-6
     v_norm = jnp.linalg.norm(v, axis=0, keepdims=True)
-    # sum(a*v), not jnp.vdot: identical for real arrays, and vdot's
-    # scalar dot_general does not lower in Mosaic (the fused Pallas
-    # solver kernels trace this step function directly).
     power = reduce_fn(jnp.sum(a * v))
     v = v + alpha * (a / a_norm * v_norm - v)
 

@@ -1,6 +1,6 @@
 // Native host-side kernels for sofima_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; these C++ routines cover the
+// The device compute path is JAX/XLA; these C++ routines cover the
 // *host* hot paths that the reference delegated to native libraries
 // (edt, OpenCV, connectomics C ops):
 //   * exact 2d Euclidean distance transform (Felzenszwalb & Huttenlocher

@@ -1,6 +1,6 @@
 """Contrast-limited adaptive histogram equalization (CLAHE) on device.
 
-TPU-native replacement for skimage.exposure.equalize_adapthist as used in
+JAX replacement for skimage.exposure.equalize_adapthist as used in
 tile rendering (/root/reference/warp.py:457-461). Classic CLAHE: per-tile
 clipped histograms -> CDFs, bilinear interpolation of tile mappings at
 every pixel. Histograms are built with one-hot bincounts (VPU-friendly),

@@ -1,6 +1,6 @@
 """Euclidean distance transform on device (jump flooding).
 
-TPU-native replacement for the `edt` C++ library used for tile-blending
+JAX replacement for the `edt` C++ library used for tile-blending
 weights (/root/reference/processor/warp.py:147-161). Uses the
 jump-flooding algorithm: O(log n) vectorized passes propagating
 nearest-background-seed coordinates; distances are exact for all but a

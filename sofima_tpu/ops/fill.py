@@ -1,6 +1,6 @@
 """Hole filling and nearest-valid extrapolation for dense fields on device.
 
-TPU-native replacement for the Qhull/Delaunay scattered interpolation the
+JAX replacement for the Qhull/Delaunay scattered interpolation the
 reference uses in `fill_missing` (/root/reference/map_utils.py:227-304,
 70-117). Instead of triangulating valid samples on the host, we:
 

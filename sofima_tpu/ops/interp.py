@@ -1,6 +1,6 @@
-"""Dense N-d interpolation kernels (gather-based, XLA/TPU-friendly).
+"""Dense N-d interpolation kernels (gather-based, XLA).
 
-This module is the TPU-native replacement for the CPU interpolation stack
+This module is the device replacement for the CPU interpolation stack
 the reference leans on: `scipy.ndimage.map_coordinates`
 (/root/reference/warp.py:196,309-314), OpenCV `cv.remap` incl. Lanczos4
 (/root/reference/warp.py:156-165), and
@@ -64,14 +64,13 @@ def _lanczos_weights(t: jnp.ndarray) -> list[jnp.ndarray]:
   ws = []
   for i in range(-3, 5):
     d = t - i
-    x = jnp.pi * d
-    # sinc(d) * sinc(d/4) with the removable singularity at d=0.
-    w = jnp.where(
-        jnp.abs(d) < 1e-7,
-        1.0,
-        4.0 * jnp.sin(x) * jnp.sin(x / 4.0) / (x * x),
-    )
-    ws.append(w)
+    # sinc(d) * sinc(d/4) with the removable singularity at d=0. The
+    # singular point is replaced before the division too: a NaN computed
+    # in the unselected branch can survive fusion into a consumer.
+    near = jnp.abs(d) < 1e-7
+    x = jnp.pi * jnp.where(near, 1.0, d)
+    ws.append(jnp.where(near, 1.0,
+                        4.0 * jnp.sin(x) * jnp.sin(x / 4.0) / (x * x)))
   total = sum(ws)
   return [w / total for w in ws]
 
@@ -245,7 +244,7 @@ def upsample_map_linear(values: jnp.ndarray, scale: int,
   Equivalent to `grid_sample_linear(values, ((y + phase_y) / scale,
   (x + phase_x) / scale))` — i.e. bilinear interpolation with linear
   edge-cell extrapolation — but built from `jnp.repeat` + static slices
-  and periodic fraction planes, avoiding TPU-hostile gathers entirely.
+  and periodic fraction planes, avoiding gathers entirely.
 
   Args:
     values: [c, my, mx] grid values

@@ -1,6 +1,6 @@
 """Morphological primitives as device programs.
 
-TPU-native replacements for the scipy.ndimage CPU routines the reference
+JAX replacements for the scipy.ndimage CPU routines the reference
 uses for flow cleaning (/root/reference/flow_utils.py:74,121,129):
 median filtering (sorted stack of shifted views), connected-component
 labeling (iterative min-label propagation), and binary morphology via

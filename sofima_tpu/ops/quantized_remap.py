@@ -8,7 +8,7 @@ correction — all of which subtly shapes the reference's uint8 outputs.
 
 This module implements that contract in pure numpy so the repo has a
 deterministic CPU twin to regression-test against (goldens in
-tests/golden/) and a documented tolerance bridge to the float TPU path:
+tests/golden/) and a documented tolerance bridge to the float device path:
 
   * coordinate quantization: sx = round(x * 32); ix = sx >> 5 (floor
     part, saturated to int16), fx = sx & 31 (fraction index) —
@@ -28,7 +28,7 @@ on uint8 data, |quantized - clip(float, 0, 255)| <= 4 gray levels at
 any pixel and <= 0.5 on average — the error is dominated by the 1/32
 coordinate quantization, not the 15-bit taps. (The uint8 path saturates
 Lanczos under/overshoot, exactly like cv2; the float path does not, so
-the comparison is against the clipped float result.) Production TPU
+the comparison is against the clipped float result.) Production device
 rendering uses the float path; this module is the bit-stable CPU
 anchor.
 """

@@ -1,6 +1,6 @@
 """Global registration primitives on device: phase correlation + ECC.
 
-TPU-native replacements for the external registration routines the
+JAX replacements for the external registration routines the
 reference calls in its affine decorators: skimage
 `phase_cross_correlation` (/root/reference/decorators/affine.py:266-271)
 and OpenCV `findTransformECC` (via opencv_utils,

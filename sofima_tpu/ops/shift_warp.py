@@ -1,289 +1,34 @@
-"""Shift-decomposed warping: gather-free dense resampling for TPU.
+"""Tiled shift plans: per-tile integer bases of a smooth warp.
 
-XLA lowers per-pixel gathers to scalar code on TPU (~50M elements/s —
-1000x below HBM bandwidth), which makes classic remap formulations the
-bottleneck of the rendering path. This module exploits the structure of
-alignment warps: displacement fields are SMOOTH and BOUNDED, so the
-resampling sum
+Alignment warps are SMOOTH and BOUNDED. Split the output into tiles and
+each tile's displacement field is an integer base shift (the rounded
+midpoint of the tile's displacement hull) plus a small residual. The
+plans here compute those bases and the residual bounds from the (tiny)
+map-node displacement arrays: exact hulls, because linear densification
+is a convex combination of node values (plus linear edge extrapolation,
+covered by extending the node grids).
 
-    out[p] = sum_k  K(frac(p) - k) * img[base(p) + k]
-
-can be reorganized over absolute integer shifts s:
-
-    out[p] = sum_{s in [lo, hi+taps)^2}  Ky(dy(p) - sy) * Kx(dx(p) - sx)
-                                         * img_padded[p + s]
-
-where every term is a STATIC slice of the padded image times per-pixel
-separable weights — pure VPU multiply-adds, no gathers at all. Cost
-scales with the displacement range instead of the tap count, so Lanczos4
-costs the same as bilinear for a given deformation magnitude.
-
-The displacement bounds are static (host-derived from the coordinate map,
-which is tiny, and bucketed to limit recompilation). For displacement
-ranges beyond ~100 px, warp at a coarser granularity (the processors
-already subdivide work spatially) or fall back to the gather sampler.
+The device renders (pipeline.stack_align, pipeline.montage and the
+masked flow transport) sample through the gather sampler
+(`ops.interp.sample`); they run `tiled_plan_device` on the solved map to
+check it against their static displacement envelope and report an
+`overflow` flag when a tile leaves it. `tiled_shift_plan` is the host
+twin of that plan.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sofima_tpu.ops import interp as interp_ops
-
-
-def _kernel_weight(t: jnp.ndarray, method: str) -> jnp.ndarray:
-  """Interpolation kernel K(t) evaluated elementwise (support varies)."""
-  if method == 'nearest':
-    return ((t >= -0.5) & (t < 0.5)).astype(jnp.float32)
-  if method == 'linear':
-    return jnp.maximum(0.0, 1.0 - jnp.abs(t))
-  if method == 'cubic':
-    a = -0.75
-    at = jnp.abs(t)
-    near = (a + 2.0) * at**3 - (a + 3.0) * at**2 + 1.0
-    far = a * at**3 - 5.0 * a * at**2 + 8.0 * a * at - 4.0 * a
-    return jnp.where(at <= 1.0, near, jnp.where(at < 2.0, far, 0.0))
-  if method == 'lanczos':
-    x = jnp.pi * t
-    w = jnp.where(
-        jnp.abs(t) < 1e-6, 1.0,
-        4.0 * jnp.sin(x) * jnp.sin(x / 4.0) / jnp.maximum(x * x, 1e-12))
-    return jnp.where(jnp.abs(t) < 4.0, w, 0.0)
-  raise ValueError(f'Unknown method {method!r}')
-
-
-_TAPS = {'nearest': 1, 'linear': 2, 'cubic': 4, 'lanczos': 8}
-# Kernel support radius on each side of the base tap.
-_LEFT = {'nearest': 0, 'linear': 0, 'cubic': 1, 'lanczos': 3}
-
-
-def make_weight_fn(d: jnp.ndarray, method: str):
-  """Returns s -> K(d - s) with transcendentals hoisted out of the loop.
-
-  For Lanczos4 at integer shifts s:
-    sin(pi (d - s))   = (-1)^s sin(pi d)
-    sin(pi (d - s)/4) = sin(pi d / 4) cos(pi s / 4) - cos(pi d / 4) sin(pi s / 4)
-  so the three transcendental planes are computed ONCE per axis and every
-  lattice iteration only performs cheap arithmetic.
-  """
-  if method != 'lanczos':
-    return lambda s: _kernel_weight(d - s, method)
-
-  # Range-reduce d before the hoisted transcendentals. The identities
-  # are exact, but f32 sin at argument pi*d carries ABSOLUTE error
-  # ~|d|*pi*eps — for |d| ~ 100 (a large global displacement, e.g. a
-  # montage tile offset) that swamps the true sin(pi*t) ~ pi*t near
-  # integer displacements, and the 1/(pi t)^2 amplification turns the
-  # noise into weights of +-1e3..1e11 (found via render_tiles at
-  # displacement ~120, round 5). sin(pi d) = (-1)^round(d) sin(pi frac)
-  # and the quarter-period terms reduce modulo 8, keeping every argument
-  # in [-pi, pi] where f32 sin/cos are accurate. (The large-|d| regime
-  # is exactly where the untiled shift path runs; the tiled kernels only
-  # ever see small residuals.)
-  k_int = jnp.round(d)
-  frac = d - k_int
-  parity = 1.0 - 2.0 * jnp.mod(k_int, 2.0)
-  sin_pd = parity * jnp.sin(jnp.pi * frac)
-  d8 = d - 8.0 * jnp.round(d / 8.0)
-  sin_pd4 = jnp.sin(jnp.pi * d8 / 4.0)
-  cos_pd4 = jnp.cos(jnp.pi * d8 / 4.0)
-
-  def weight(s) -> jnp.ndarray:
-    # `s` may be a traced integer scalar (loop index): only SCALAR
-    # transcendentals depend on it.
-    s_f = jnp.asarray(s, jnp.float32)
-    t = d - s_f
-    sign = 1.0 - 2.0 * jnp.mod(s_f, 2.0)
-    c_s = jnp.cos(jnp.pi * s_f / 4.0)
-    s_s = jnp.sin(jnp.pi * s_f / 4.0)
-    sin_pt = sign * sin_pd
-    sin_pt4 = sin_pd4 * c_s - cos_pd4 * s_s
-    x2 = jnp.maximum((jnp.pi * t) ** 2, 1e-12)
-    w = jnp.where(jnp.abs(t) < 1e-6, 1.0, 4.0 * sin_pt * sin_pt4 / x2)
-    return jnp.where(jnp.abs(t) < 4.0, w, 0.0)
-
-  return weight
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=['method', 'dy_lo', 'dy_hi', 'dx_lo', 'dx_hi',
-                     'origin_y', 'origin_x'])
-def shift_warp_2d(
-    image: jnp.ndarray,
-    coords: jnp.ndarray,
-    method: str,
-    dy_lo: int, dy_hi: int, dx_lo: int, dx_hi: int,
-    origin_y: int = 0, origin_x: int = 0,
-) -> jnp.ndarray:
-  """Warps a [y, x] image given per-pixel source coords, gather-free.
-
-  Args:
-    image: [h, w] source
-    coords: [2, oy, ox] (y, x) source sampling positions in image
-      coordinates; out[p] = interp(image, coords[:, p])
-    method: 'nearest' | 'linear' | 'cubic' | 'lanczos'
-    dy_lo/dy_hi/dx_lo/dx_hi: static integer bounds of the displacement
-      coords[c] - (output_position[c] + origin) (inclusive); samples
-      whose displacement leaves these bounds read zeros
-    origin_y/origin_x: image coordinate of output pixel (0, 0) — nonzero
-      when rendering a sub-region (e.g. a strip) of a larger output
-
-  Returns:
-    [oy, ox] warped image (float32); out-of-image samples are 0, NaN
-    coords produce 0.
-  """
-  oy, ox = coords.shape[1:]
-  image = image.astype(jnp.float32)
-
-  left = _LEFT[method]
-  taps = _TAPS[method]
-  # Absolute shift range: base displacement plus kernel support.
-  sy0 = int(np.floor(dy_lo)) - left
-  sy1 = int(np.floor(dy_hi)) + (taps - 1 - left)
-  sx0 = int(np.floor(dx_lo)) - left
-  sx1 = int(np.floor(dx_hi)) + (taps - 1 - left)
-  ry = sy1 - sy0 + 1
-  rx = sx1 - sx0 + 1
-
-  yy = jnp.arange(oy, dtype=jnp.float32)[:, None] + origin_y
-  xx = jnp.arange(ox, dtype=jnp.float32)[None, :] + origin_x
-  dy = jnp.nan_to_num(coords[0], nan=1e9) - yy  # [oy, ox]
-  dx = jnp.nan_to_num(coords[1], nan=1e9) - xx
-
-  # Pad so every accessed window (origin + [0, oy) + s) is in range.
-  pad_top = max(-(origin_y + sy0), 0)
-  pad_bot = max(origin_y + sy1 + oy - image.shape[0], 0)
-  pad_lft = max(-(origin_x + sx0), 0)
-  pad_rgt = max(origin_x + sx1 + ox - image.shape[1], 0)
-  padded = jnp.pad(image, ((pad_top, pad_bot), (pad_lft, pad_rgt)))
-
-  weight_y = make_weight_fn(dy, method)
-  weight_x = make_weight_fn(dx, method)
-
-  if method == 'lanczos':
-    # Normalize the 8 contributing taps per axis.
-    norm_y = jax.lax.fori_loop(
-        0, ry, lambda i, acc: acc + weight_y(sy0 + i),
-        jnp.zeros((oy, ox), jnp.float32))
-    norm_x = jax.lax.fori_loop(
-        0, rx, lambda i, acc: acc + weight_x(sx0 + i),
-        jnp.zeros((oy, ox), jnp.float32))
-  else:
-    norm_y = norm_x = None
-
-  # One device loop over the (ry * rx) shift lattice: each iteration is a
-  # dynamic_slice (contiguous window — no gather) + separable kernel
-  # weights + fused multiply-add. Memory stays O(output size); the
-  # factored weight functions keep per-iteration work transcendental-free.
-  def body(i, acc):
-    iy = i // rx
-    ix = i % rx
-    s_y = sy0 + iy
-    s_x = sx0 + ix
-    window = jax.lax.dynamic_slice(
-        padded, (pad_top + origin_y + s_y, pad_lft + origin_x + s_x),
-        (oy, ox))
-    w = weight_y(s_y) * weight_x(s_x)
-    return acc + w * window
-
-  out = jax.lax.fori_loop(0, ry * rx, body,
-                          jnp.zeros((oy, ox), jnp.float32))
-  if norm_y is not None:
-    out = out / jnp.maximum(norm_y * norm_x, 1e-12)
-  return out
-
-
-def displacement_bounds(abs_map: np.ndarray, map_grid_coords: np.ndarray,
-                        stride: float = 1.0,
-                        bucket: int = 8,
-                        edge_nodes: int = 2) -> tuple[int, int, int, int]:
-  """Static displacement bounds from a (small) absolute coordinate map.
-
-  Exact for linearly densified maps: at any output pixel the dense
-  displacement (sample position minus output position) is a bilinear
-  CONVEX combination of per-node displacements, so the node extrema
-  bound it tightly. Beyond the last node, linear edge extrapolation
-  (interp.upsample_map_linear's behavior) extends each displacement by
-  its own edge gradient — covered by extending the node arrays the same
-  way before taking extrema. A wide pad here directly inflates the shift
-  lattice (ry*rx kernel iterations), so tight matters.
-
-  Args:
-    abs_map: [2, my, mx] absolute source positions at map nodes (x, y
-      channel order, pixels)
-    map_grid_coords: unused placeholder for API symmetry
-    stride: map node spacing in pixels
-    bucket: bounds are rounded outward to multiples of this to limit the
-      number of distinct compiled programs
-    edge_nodes: extrapolated nodes per axis edge (covers output extents
-      up to edge_nodes*stride past the last map node)
-
-  Returns:
-    (dy_lo, dy_hi, dx_lo, dx_hi) conservative inclusive bounds
-  """
-  del map_grid_coords
-  my, mx = abs_map.shape[1:]
-  node_y = np.arange(my, dtype=np.float64)[:, None] * stride
-  node_x = np.arange(mx, dtype=np.float64)[None, :] * stride
-  return displacement_bounds_from_disp(abs_map[1] - node_y,
-                                       abs_map[0] - node_x,
-                                       bucket=bucket, edge_nodes=edge_nodes)
-
-
-def displacement_bounds_from_disp(
-    disp_y: np.ndarray, disp_x: np.ndarray, bucket: int = 8,
-    edge_nodes: int = 2, pad: float = 1.0) -> tuple[int, int, int, int]:
-  """Bounds from per-node displacement arrays ([..., my, mx], any batch
-  dims). See displacement_bounds for the convexity/extrapolation math."""
-
-  def extend(d, axis):
-    # BOTH edges: output boxes may start before the first map node
-    # (offset/map_box geometry), where the densifier extrapolates from
-    # the leading nodes just like past the last one.
-    first = np.take(d, [0], axis=axis)
-    second = np.take(d, [1], axis=axis)
-    last = np.take(d, [-1], axis=axis)
-    prev = np.take(d, [-2], axis=axis)
-    lo = [first + (k + 1) * (first - second)
-          for k in range(edge_nodes)][::-1]
-    hi = [last + (k + 1) * (last - prev) for k in range(edge_nodes)]
-    return np.concatenate(lo + [d] + hi, axis=axis)
-
-  for axis in (-2, -1):
-    if disp_y.shape[axis] >= 2:
-      disp_y = extend(disp_y, axis)
-      disp_x = extend(disp_x, axis)
-
-  def lo(v):
-    return int(np.floor((np.nanmin(v) - pad) / bucket) * bucket)
-
-  def hi(v):
-    return int(np.ceil((np.nanmax(v) + pad) / bucket) * bucket)
-
-  return lo(disp_y), hi(disp_y), lo(disp_x), hi(disp_x)
-
-
-# Maximum displacement range (per axis) for which the single-lattice
-# shift decomposition is used; beyond this, the TILED decomposition
-# (per-tile integer base offsets, see tiled_shift_plan) removes the
-# dependence on the global displacement magnitude.
-MAX_SHIFT_RANGE = 160
-
-# Output tile for the tiled decomposition: y a multiple of the f32
-# sublane count (8), x a multiple of the lane count (128). (128, 256)
-# measured fastest on v5e for the Pallas executor (smaller tiles see
-# more of the local displacement structure -> tighter residual lattice;
-# too small and the per-tile window DMA/roll overhead dominates).
+# Output tile of the plans: smaller tiles see more of the local
+# displacement structure -> a tighter residual envelope, at more tiles.
 TILE_SHAPE = (128, 256)
 
 
-# Sentinel residual bounds for tiles with no finite displacement node:
-# lo > hi yields an empty per-tile lattice (the kernel emits zeros there).
+# Sentinel residual bounds for tiles with no finite displacement node
+# (lo > hi: an empty residual range).
 _EMPTY_LO = 2**20
 _EMPTY_HI = -(2**20)
 
@@ -321,13 +66,13 @@ def tiled_shift_plan(
     pad: float = 1.0,
     bucket: int = 4,
 ):
-  """Host-side plan for the tiled shift decomposition.
+  """Host-side tiled shift plan (the twin of `tiled_plan_device`).
 
   Splits the output into `tile`-sized tiles and derives, per tile, an
   integer base displacement (the rounded midpoint of the nodewise
-  displacement hull over the tile). The device kernel then only sweeps
-  the RESIDUAL displacement lattice, whose size is set by the local
-  variation of the warp — independent of its global magnitude.
+  displacement hull over the tile). What remains is the RESIDUAL
+  displacement, whose range is set by the local variation of the warp —
+  independent of its global magnitude.
 
   Args:
     disp_y/disp_x: [z, my, mx] displacement at map nodes (map value minus
@@ -338,18 +83,16 @@ def tiled_shift_plan(
     tile: (tile_y, tile_x) output tile shape
     pad: safety margin added to the residual bounds (edge extrapolation
       of the map densification)
-    bucket: residual bounds are rounded outward to multiples of this to
-      limit the number of distinct compiled programs
+    bucket: residual bounds are rounded outward to multiples of this
 
   Returns:
     None when no node is finite; otherwise a dict with
       bases: int32 [z, nty, ntx, 2] per-tile (y, x) base displacements
       residual_bounds: (ry_lo, ry_hi, rx_lo, rx_hi) static ints
       base_bounds: (by_lo, by_hi, bx_lo, bx_hi) static ints (bucketed to
-        64) bounding every base — used for image padding
+        64) bounding every base
       tile_bounds: int32 [z, nty, ntx, 4] per-tile residual bounds
-        (y_lo, y_hi, x_lo, x_hi); a strict subset of residual_bounds,
-        consumed by the Pallas kernel to prune its shift lattice
+        (y_lo, y_hi, x_lo, x_hi); a strict subset of residual_bounds
       tile: the tile shape actually used
   """
   oy, ox = int(out_shape[0]), int(out_shape[1])
@@ -484,20 +227,19 @@ def tiled_plan_device(
   """Device-resident tiled shift plan: no map d2h round trip.
 
   The host plan (tiled_shift_plan) needs the coordinate map as numpy; in
-  a device-resident pipeline, fetching even a small map stalls on the
-  accelerator link. This twin keeps the DATA on device: node positions
-  and tile geometry are static (host numpy), while the per-tile hulls,
-  bases and pruning bounds are computed with XLA ops on the device map.
-  The lattice envelope (residual_bounds/base_bounds) must be supplied
-  statically — per-tile bounds are clipped into it by the kernel, and
-  the returned `overflow` scalar reports whether any finite tile
-  actually exceeded it (its extreme pixels would render as zeros).
+  a device-resident pipeline, fetching even a small map stalls the
+  device. This twin keeps the DATA on device: node positions and tile
+  geometry are static (host numpy), while the per-tile hulls, bases and
+  bounds are computed with XLA ops on the device map. The envelope
+  (residual_bounds/base_bounds) must be supplied statically; the
+  returned `overflow` scalar reports whether any finite tile exceeded
+  it.
 
   Args:
     disp_y/disp_x: [z, my, mx] device displacement-at-node arrays
     node_out_y/node_out_x: static node positions in output pixels
     out_shape: (oy, ox) output size
-    residual_bounds: static residual lattice envelope
+    residual_bounds: static residual envelope
     base_bounds: static bounds every (clamped) base must respect
     tile: output tile shape
     pad: densification safety margin
@@ -600,283 +342,3 @@ def tiled_plan_device(
       base_bounds=(by_lo, by_hi, bx_lo, bx_hi),
       tile=(ty, tx),
   )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=['method', 'ry_lo', 'ry_hi', 'rx_lo', 'rx_hi',
-                     'by_lo', 'by_hi', 'bx_lo', 'bx_hi',
-                     'tile_y', 'tile_x', 'origin_y', 'origin_x'])
-def shift_warp_2d_tiled(
-    image: jnp.ndarray,
-    coords: jnp.ndarray,
-    bases: jnp.ndarray,
-    method: str,
-    ry_lo: int, ry_hi: int, rx_lo: int, rx_hi: int,
-    by_lo: int, by_hi: int, bx_lo: int, bx_hi: int,
-    tile_y: int, tile_x: int,
-    origin_y: int = 0, origin_x: int = 0,
-) -> jnp.ndarray:
-  """Tiled shift-decomposed warp: gather-free for arbitrary magnitudes.
-
-  Like shift_warp_2d, but the output is processed in (tile_y, tile_x)
-  tiles, each with its own integer base displacement (bases[ti, tj]);
-  the static shift lattice only spans the residual displacement
-  [ry_lo, ry_hi] x [rx_lo, rx_hi]. Samples whose residual leaves these
-  bounds (including all-NaN tiles, whose base is 0) read as zeros.
-
-  Args:
-    image: [h, w] source
-    coords: [2, oy, ox] (y, x) source sampling positions
-    bases: int32 [nty, ntx, 2] per-tile (y, x) integer base displacement
-    ry_lo..rx_hi: static inclusive residual-displacement bounds
-    by_lo..bx_hi: static bounds on every base (image padding)
-    tile_y/tile_x: static tile shape; nty = ceil(oy / tile_y) etc.
-    origin_y/origin_x: image coordinate of output pixel (0, 0)
-
-  Returns:
-    [oy, ox] warped image (float32)
-  """
-  oy, ox = coords.shape[1:]
-  image = image.astype(jnp.float32)
-  nty = -(-oy // tile_y)
-  ntx = -(-ox // tile_x)
-  oyp, oxp = nty * tile_y, ntx * tile_x
-  coords = jnp.pad(coords, ((0, 0), (0, oyp - oy), (0, oxp - ox)),
-                   mode='edge')
-
-  left = _LEFT[method]
-  taps = _TAPS[method]
-  sy0 = ry_lo - left
-  sy1 = ry_hi + (taps - 1 - left)
-  sx0 = rx_lo - left
-  sx1 = rx_hi + (taps - 1 - left)
-  ry = sy1 - sy0 + 1
-  rx = sx1 - sx0 + 1
-
-  yy = jnp.arange(oyp, dtype=jnp.float32)[:, None] + origin_y
-  xx = jnp.arange(oxp, dtype=jnp.float32)[None, :] + origin_x
-  dy_full = jnp.nan_to_num(coords[0], nan=1e9) - yy
-  dx_full = jnp.nan_to_num(coords[1], nan=1e9) - xx
-
-  # Pad so every access (origin + tile + base + s) stays in range.
-  ay0, ay1 = by_lo + sy0, by_hi + sy1
-  ax0, ax1 = bx_lo + sx0, bx_hi + sx1
-  pad_top = max(-(origin_y + ay0), 0)
-  pad_bot = max(origin_y + ay1 + oyp - image.shape[0], 0)
-  pad_lft = max(-(origin_x + ax0), 0)
-  pad_rgt = max(origin_x + ax1 + oxp - image.shape[1], 0)
-  padded = jnp.pad(image, ((pad_top, pad_bot), (pad_lft, pad_rgt)))
-
-  def tile_body(t, out):
-    ti = t // ntx
-    tj = t % ntx
-    y0 = ti * tile_y
-    x0 = tj * tile_x
-    b = jax.lax.dynamic_slice(bases, (ti, tj, 0), (1, 1, 2))[0, 0]
-    by = b[0]
-    bx = b[1]
-    dyt = jax.lax.dynamic_slice(
-        dy_full, (y0, x0), (tile_y, tile_x)) - by.astype(jnp.float32)
-    dxt = jax.lax.dynamic_slice(
-        dx_full, (y0, x0), (tile_y, tile_x)) - bx.astype(jnp.float32)
-    weight_y = make_weight_fn(dyt, method)
-    weight_x = make_weight_fn(dxt, method)
-
-    if method == 'lanczos':
-      norm_y = jax.lax.fori_loop(
-          0, ry, lambda i, acc: acc + weight_y(sy0 + i),
-          jnp.zeros((tile_y, tile_x), jnp.float32))
-      norm_x = jax.lax.fori_loop(
-          0, rx, lambda i, acc: acc + weight_x(sx0 + i),
-          jnp.zeros((tile_y, tile_x), jnp.float32))
-      norm = jnp.maximum(norm_y * norm_x, 1e-12)
-    else:
-      norm = None
-
-    base_start_y = pad_top + origin_y + y0 + by
-    base_start_x = pad_lft + origin_x + x0 + bx
-
-    def body(i, acc):
-      s_y = sy0 + i // rx
-      s_x = sx0 + i % rx
-      window = jax.lax.dynamic_slice(
-          padded, (base_start_y + s_y, base_start_x + s_x),
-          (tile_y, tile_x))
-      return acc + weight_y(s_y) * weight_x(s_x) * window
-
-    acc = jax.lax.fori_loop(0, ry * rx, body,
-                            jnp.zeros((tile_y, tile_x), jnp.float32))
-    if norm is not None:
-      acc = acc / norm
-    return jax.lax.dynamic_update_slice(out, acc, (y0, x0))
-
-  out = jax.lax.fori_loop(0, nty * ntx, tile_body,
-                          jnp.zeros((oyp, oxp), jnp.float32))
-  return out[:oy, :ox]
-
-
-def warp_sections_shift_tiled(images: jnp.ndarray, abs_map: jnp.ndarray,
-                              map_grid_coords: jnp.ndarray, method: str,
-                              plan: dict,
-                              origin: tuple[int, int] = (0, 0)) -> jnp.ndarray:
-  """Tiled-shift equivalent of warp_sections_shift (unbounded magnitude).
-
-  Args:
-    images: [z, c, y, x] source sections
-    abs_map: [z, 2, my, mx] absolute inverse maps (x, y channels)
-    map_grid_coords: [2, oy, ox] output coords in map-node units (y, x)
-    method: interpolation kernel
-    plan: tiled_shift_plan result (bases [z, nty, ntx, 2] + bounds)
-    origin: (y, x) source-image coordinate of output pixel (0, 0)
-
-  Returns:
-    [z, c, oy, ox] warped output
-  """
-  ry_lo, ry_hi, rx_lo, rx_hi = plan['residual_bounds']
-  by_lo, by_hi, bx_lo, bx_hi = plan['base_bounds']
-  tile_y, tile_x = plan['tile']
-  oy0, ox0 = origin
-  bases = jnp.asarray(plan['bases'])
-
-  def one_section(args):
-    img_c, m, b = args
-    dense_x = interp_ops.grid_sample_linear(m[0], map_grid_coords)
-    dense_y = interp_ops.grid_sample_linear(m[1], map_grid_coords)
-    coords = jnp.stack([dense_y, dense_x])
-    return jax.vmap(
-        lambda img: shift_warp_2d_tiled(
-            img, coords, b, method, ry_lo, ry_hi, rx_lo, rx_hi,
-            by_lo, by_hi, bx_lo, bx_hi, tile_y, tile_x, oy0, ox0))(img_c)
-
-  # lax.map (not vmap) over sections: per-section bases feed traced
-  # dynamic_slice starts, which a batched vmap would lower to gathers.
-  return jax.lax.map(one_section, (images, abs_map, bases))
-
-@functools.partial(
-    jax.jit,
-    static_argnames=['method', 'dz_lo', 'dz_hi', 'dy_lo', 'dy_hi',
-                     'dx_lo', 'dx_hi', 'origin_z', 'origin_y', 'origin_x'])
-def shift_warp_3d(
-    volume: jnp.ndarray,
-    coords: jnp.ndarray,
-    method: str,
-    dz_lo: int, dz_hi: int, dy_lo: int, dy_hi: int, dx_lo: int, dx_hi: int,
-    origin_z: int = 0, origin_y: int = 0, origin_x: int = 0,
-) -> jnp.ndarray:
-  """Warps a [z, y, x] volume given per-voxel source coords, gather-free.
-
-  The 3d twin of shift_warp_2d: the trilinear/tricubic resampling sum is
-  reorganized over the static integer-shift lattice spanned by the
-  displacement bounds plus kernel support, so every term is a contiguous
-  dynamic_slice times separable per-voxel weights — no gathers. This is
-  the fast path for `ndimage_warp`'s 3d rendering
-  (StitchAndRender3dTiles), which otherwise pays 8+ scalar gathers per
-  voxel through map_coordinates.
-
-  Args:
-    volume: [d, h, w] source
-    coords: [3, oz, oy, ox] (z, y, x) source sampling positions
-    method: 'nearest' | 'linear' | 'cubic'
-    dz_lo..dx_hi: static inclusive displacement bounds of
-      coords[c] - (output_position[c] + origin[c])
-    origin_z/y/x: volume coordinate of output voxel (0, 0, 0)
-
-  Returns:
-    [oz, oy, ox] warped volume (float32); out-of-volume samples are 0,
-    NaN coords produce 0.
-  """
-  oz, oy, ox = coords.shape[1:]
-  volume = volume.astype(jnp.float32)
-
-  left = _LEFT[method]
-  taps = _TAPS[method]
-  s0 = [int(np.floor(lo)) - left for lo in (dz_lo, dy_lo, dx_lo)]
-  s1 = [int(np.floor(hi)) + (taps - 1 - left)
-        for hi in (dz_hi, dy_hi, dx_hi)]
-  rz, ry, rx = [b - a + 1 for a, b in zip(s0, s1)]
-
-  zz = jnp.arange(oz, dtype=jnp.float32)[:, None, None] + origin_z
-  yy = jnp.arange(oy, dtype=jnp.float32)[None, :, None] + origin_y
-  xx = jnp.arange(ox, dtype=jnp.float32)[None, None, :] + origin_x
-  dz = jnp.nan_to_num(coords[0], nan=1e9) - zz
-  dy = jnp.nan_to_num(coords[1], nan=1e9) - yy
-  dx = jnp.nan_to_num(coords[2], nan=1e9) - xx
-
-  origin = (origin_z, origin_y, origin_x)
-  out_sz = (oz, oy, ox)
-  pads = []
-  for a in range(3):
-    pads.append((max(-(origin[a] + s0[a]), 0),
-                 max(origin[a] + s1[a] + out_sz[a] - volume.shape[a], 0)))
-  padded = jnp.pad(volume, pads)
-
-  wz = make_weight_fn(dz, method)
-  wy = make_weight_fn(dy, method)
-  wx = make_weight_fn(dx, method)
-
-  def body(i, acc):
-    s_z = s0[0] + i // (ry * rx)
-    s_y = s0[1] + (i // rx) % ry
-    s_x = s0[2] + i % rx
-    window = jax.lax.dynamic_slice(
-        padded,
-        (pads[0][0] + origin_z + s_z, pads[1][0] + origin_y + s_y,
-         pads[2][0] + origin_x + s_x),
-        out_sz)
-    return acc + wz(s_z) * wy(s_y) * wx(s_x) * window
-
-  return jax.lax.fori_loop(0, rz * ry * rx, body,
-                           jnp.zeros(out_sz, jnp.float32))
-
-
-# Measured per-pixel costs on TPU v5e: one shift-lattice iteration
-# (slice + weights + fma) vs one gather tap. Used to choose between the
-# shift decomposition and the gather sampler per call.
-SHIFT_COST_PER_ITER = 0.55e-9
-GATHER_COST_PER_TAP = 18e-9
-# The Pallas VMEM-tile executor amortizes the window read across the
-# whole lattice: measured ~1.6e-12 s per pixel-iteration on v5e (vs
-# 0.55e-9 for the XLA dynamic-slice formulation). Modeled conservatively.
-PALLAS_SHIFT_COST_PER_ITER = 5e-12
-
-
-def shift_path_profitable(dy_range: int, dx_range: int, method: str,
-                          pallas: bool = False) -> bool:
-  """Cost-model choice: (range+taps)^2 shift iters vs taps^2 gathers."""
-  taps = _TAPS[method]
-  shift_iters = (dy_range + taps) * (dx_range + taps)
-  per_iter = PALLAS_SHIFT_COST_PER_ITER if pallas else SHIFT_COST_PER_ITER
-  return per_iter * shift_iters < taps * taps * GATHER_COST_PER_TAP
-
-
-def warp_sections_shift(images: jnp.ndarray, abs_map: jnp.ndarray,
-                        map_grid_coords: jnp.ndarray, method: str,
-                        bounds: tuple[int, int, int, int],
-                        origin: tuple[int, int] = (0, 0)) -> jnp.ndarray:
-  """Shift-decomposed equivalent of warp._warp_sections.
-
-  Args:
-    images: [z, c, y, x] source sections
-    abs_map: [z, 2, my, mx] absolute inverse maps (x, y channels) in
-      source-image pixel coordinates
-    map_grid_coords: [2, oy, ox] output coords in map-node units (y, x)
-    method: interpolation kernel
-    bounds: static displacement bounds (see displacement_bounds)
-    origin: (y, x) source-image coordinate of output pixel (0, 0)
-
-  Returns:
-    [z, c, oy, ox] warped output
-  """
-  dy_lo, dy_hi, dx_lo, dx_hi = bounds
-  oy0, ox0 = origin
-
-  def one_section(img_c, m):
-    dense_x = interp_ops.grid_sample_linear(m[0], map_grid_coords)
-    dense_y = interp_ops.grid_sample_linear(m[1], map_grid_coords)
-    coords = jnp.stack([dense_y, dense_x])
-    return jax.vmap(
-        lambda img: shift_warp_2d(img, coords, method, dy_lo, dy_hi,
-                                  dx_lo, dx_hi, oy0, ox0))(img_c)
-
-  return jax.vmap(one_section)(images, abs_map)

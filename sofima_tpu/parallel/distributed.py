@@ -1,7 +1,7 @@
-"""Multi-host (pod-scale) execution utilities.
+"""Multi-host execution utilities.
 
 The reference scales out through an external Beam service; this module is
-the framework-native equivalent for TPU pods:
+the framework-native equivalent for multi-host accelerator jobs:
 
   * `initialize()` — wraps jax.distributed.initialize for multi-host
     runs (controller-less; coordinator address from the environment).
@@ -13,8 +13,8 @@ the framework-native equivalent for TPU pods:
     volume (TensorStore on shared storage in production, in-memory for
     single-host tests), followed by an optional cross-host barrier.
   * `device_mesh()` — builds 1d/2d jax.sharding.Mesh over all devices of
-    the job for the spatially-sharded solver (ICI within a slice, DCN
-    across slices handled by JAX's device ordering).
+    the job for the spatially-sharded solver (in `jax.devices()` order;
+    the collectives go to NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -65,9 +65,8 @@ def _halo_pad_y(x_local: jnp.ndarray, axis_name: str) -> jnp.ndarray:
 def _sharded_force_2d(axis_name: str, base_force=None):
   """Wraps an in-plane force with per-step 1-row halo exchange.
 
-  `base_force` defaults to the XLA stencil; pass
-  `ops.pallas_mesh.make_inplane_force()` to run the fused Pallas kernel
-  per shard (halo rows arrive via ppermute exactly as for the XLA path).
+  `base_force` defaults to the XLA stencil; any force with the same
+  signature runs per shard (halo rows arrive via ppermute).
   """
   if base_force is None:
     base_force = mesh_lib.inplane_force
@@ -208,15 +207,7 @@ def relax_mesh_sharded(
   @functools.partial(
       shard_map, mesh=device_mesh,
       in_specs=(spec, spec) if has_prev else (spec,),
-      out_specs=(spec, P(None), P()),
-      # Pallas kernels inside the body have no varying-mesh-axes
-      # annotations; skip the vma check. The exemption covers the whole
-      # shard-mapped body (the API has no narrower scope), so the
-      # replication semantics are pinned instead by the exact
-      # sharded-vs-single-device parity tests in tests/test_parallel.py
-      # (TestRelaxMeshSharded.test_matches_single_device_*) — keep them
-      # green when editing this body.
-      check_vma=False)
+      out_specs=(spec, P(None), P()))
   def run(x_local, *maybe_prev):
     prev_local = maybe_prev[0] if maybe_prev else None
     force, _, fire_step = mesh_lib._make_step_fns(
@@ -378,14 +369,7 @@ def dense_flow_field_sharded(
   shard_fn = functools.partial(
       shard_map, mesh=device_mesh,
       in_specs=(P(axis_name, None),) * n_in,
-      out_specs=P(None, axis_name, None),
-      # pallas_call (the TPU dense-flow kernel) does not participate in
-      # the varying-manual-axes check; the exemption necessarily covers
-      # the whole body. Semantics are pinned by the exact parity tests
-      # in tests/test_parallel.py (TestDenseFlowSharded.
-      # test_matches_single_device / test_masked_matches_single_device)
-      # — keep them green when editing this body.
-      check_vma=False)
+      out_specs=P(None, axis_name, None))
 
   spec = NamedSharding(device_mesh, P(axis_name, None))
   pre_image = jax.device_put(jnp.asarray(pre_image, jnp.float32), spec)

@@ -59,12 +59,10 @@ class EstimateFlow(SubvolumeProcessor):
     # Correlation backend for dense unmasked runs:
     # 'padfield' | 'circular' | 'circular_dft' | 'circular_dft_bf16' |
     # 'coarse_to_fine' (full-patch coarse grid + targeted half-patch
-    # fine pass — the fastest TPU mode; see
-    # flow_field.coarse_to_fine_flow).
-    # Default: 'circular_dft' — the TPU grid-kernel path whose integer
+    # fine pass; see flow_field.coarse_to_fine_flow).
+    # Default: 'circular_dft' — the dense strip path whose integer
     # peaks are parity-tested against the padfield oracle
-    # (tests/test_flow_field.py, bench gates); ~39x faster on a 10k^2
-    # section (BENCH flow_s vs flow_s_padfield). 'padfield' remains the
+    # (tests/test_flow_field.py, bench gates). 'padfield' remains the
     # oracle mode (exact reference arithmetic) and is still what masked
     # / selection-masked work items use.
     flow_mode: str = 'circular_dft'

@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
 from typing import Any, Sequence
 
-from absl import logging
 import jax.numpy as jnp
 import numpy as np
 

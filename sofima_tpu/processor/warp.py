@@ -16,9 +16,9 @@ Capability parity with /root/reference/processor/warp.py:
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Sequence
 
-from absl import logging
 import numpy as np
 
 from sofima_tpu import map_utils

@@ -81,7 +81,7 @@ def compute_flow_map(
   default 'padfield' is the reference-parity host-batched path; the
   'circular*' modes run each overlap in ONE device dispatch — with
   device-resident tiles (jnp values in `tile_map`) the strips never
-  cross the host link (the 2d montage TPU fast path, mirroring
+  cross the host link (the 2d montage fast path, mirroring
   `compute_flow_map3d`'s flow_mode contract).
 
   Returns ({(x, y): flow padded to the tile mesh grid},
@@ -157,9 +157,9 @@ def compute_flow_map3d(
   `flow_mode='circular'` (default) routes each overlap pair through the
   device-resident 3d strip path (flow_field._dense_flow_strips_3d):
   patch-periodic correlation in ONE dispatch per pair instead of the
-  host-batched scattered-start loop — the TPU fast path for LICONN fine
-  stitching (54x on the bench overlap; BENCH flow3d_s vs
-  flow3d_padfield_s, exact integer-peak agreement). Geometries the
+  host-batched scattered-start loop — the fast path for LICONN fine
+  stitching (exact integer-peak agreement with padfield; bench
+  flow3d_peak_agreement). Geometries the
   strip path cannot take (unequal crop shapes, stride not dividing
   patch) fall back to the padfield driver automatically;
   flow_mode='padfield' forces the oracle arithmetic.

@@ -1,6 +1,6 @@
 """Axis-aligned bounding boxes in XYZ order.
 
-TPU-native reimplementation of the small slice of the
+JAX reimplementation of the small slice of the
 `connectomics.common.bounding_box` API that the reference framework relies
 on (see /root/reference/map_utils.py:307-389, /root/reference/warp.py:58-335,
 /root/reference/stitch_elastic.py:75-194 for usage patterns).

@@ -1,6 +1,6 @@
 """Integral images (summed-area tables) and patch occupancy queries.
 
-TPU-native equivalents of the `connectomics.common.geom_utils` helpers the
+JAX equivalents of the `connectomics.common.geom_utils` helpers the
 reference uses for mask-based patch selection
 (/root/reference/flow_field.py:159-175, 575-589).
 """

@@ -1,6 +1,6 @@
 """Subvolume: a chunk of voxel data anchored in a global coordinate system.
 
-Minimal TPU-native equivalent of `connectomics.volume.subvolume.Subvolume`
+Minimal equivalent of `connectomics.volume.subvolume.Subvolume`
 as used by the reference processor layer
 (/root/reference/processor/flow.py:150-245).
 Data layout is channel-first [c, z, y, x]; the bounding box is XYZ.

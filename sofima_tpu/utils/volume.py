@@ -9,7 +9,7 @@ concrete backends:
     workflows and as the exchange format between pipeline stages
   * `TensorStoreVolume` — chunked persistent storage via TensorStore
     (n5/zarr/neuroglancer_precomputed), the production data plane feeding
-    TPU hosts
+    the accelerator hosts
 
 Both expose the protocol the processor layer consumes: CZYX `__getitem__`
 indexing, `clip_box_to_volume`, `asarray`, `meta` (num_channels,

@@ -11,8 +11,13 @@ Modes:
           spatially-sharded dense flow (2-device local mesh, ppermute
           halos) validated against the single-device kernel — the
           production combination of cross-host chunk parallelism with
-          in-host ICI sharding. Per-host wall times are recorded to
+          in-host device sharding. Per-host wall times are recorded to
           <workdir>/host<i>.json.
+
+Every worker pins itself to the CPU backend (with virtual local
+devices), so several workers can run on one machine without competing
+for an accelerator: a JAX process reserves most of a GPU's memory when
+it first uses it, so one card holds one process.
 """
 
 import json

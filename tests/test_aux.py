@@ -144,6 +144,8 @@ class TestRegistration:
 
 
 class TestMultiProcess:
+  """Real multi-process runs; every worker pins itself to the CPU
+  (tests/distributed_worker.py), so no two processes share a GPU."""
 
   def test_two_process_distributed_run(self, tmp_path):
     import os

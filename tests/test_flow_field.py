@@ -414,164 +414,6 @@ class TestStripPath:
     assert np.nanmedian(out[2]) == -1.0  # z
 
 
-class TestPallasFlowKernel:
-
-  def test_corr_patches_pallas_matches_xla(self):
-    import jax.numpy as jnp
-    from sofima_tpu.ops import pallas_flow
-    rng = np.random.RandomState(0)
-    a = rng.rand(5, 32, 32).astype(np.float32) * 100
-    b = rng.rand(5, 32, 32).astype(np.float32) * 100
-    got = np.asarray(pallas_flow.corr_patches_pallas(
-        jnp.asarray(a), jnp.asarray(b), group=2, interpret=True))
-    am = a - a.mean(axis=(1, 2), keepdims=True)
-    bm = b - b.mean(axis=(1, 2), keepdims=True)
-    ref = np.asarray(flow_field._circular_xcorr_matmul(
-        jnp.asarray(am), jnp.asarray(bm)))
-    ref = np.roll(ref, (16, 16), (1, 2))
-    np.testing.assert_allclose(got, ref, atol=1.0, rtol=1e-3)
-
-  def test_corr_patches_pallas_constant_mean(self):
-    import jax.numpy as jnp
-    from sofima_tpu.ops import pallas_flow
-    rng = np.random.RandomState(1)
-    a = rng.rand(3, 16, 16).astype(np.float32)
-    b = rng.rand(3, 16, 16).astype(np.float32)
-    got = np.asarray(pallas_flow.corr_patches_pallas(
-        jnp.asarray(a), jnp.asarray(b), mean=0.5, group=4, interpret=True))
-    ref = np.asarray(flow_field._circular_xcorr_matmul(
-        jnp.asarray(a - 0.5), jnp.asarray(b - 0.5)))
-    ref = np.roll(ref, (8, 8), (1, 2))
-    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-3)
-
-  def test_flow_peaks_pallas_matches_batched_peaks(self):
-    import jax.numpy as jnp
-    from sofima_tpu.ops import pallas_flow
-    rng = np.random.RandomState(2)
-    n = 7
-    a = (rng.rand(n, 32, 32) * 100).astype(np.float32)
-    # Plant a strong shifted copy so real peaks exist.
-    b = np.roll(a, (3, -2), (1, 2)).astype(np.float32)
-    got = np.asarray(pallas_flow.flow_peaks_pallas(
-        jnp.asarray(a), jnp.asarray(b), group=4, interpret=True))
-    am = a - a.mean(axis=(1, 2), keepdims=True)
-    bm = b - b.mean(axis=(1, 2), keepdims=True)
-    corr = np.asarray(flow_field._circular_xcorr_matmul(
-        jnp.asarray(am), jnp.asarray(bm)))
-    corr = np.roll(corr, (16, 16), (1, 2))
-    ref = np.asarray(flow_field._batched_peaks(
-        jnp.asarray(corr), (16, 16), min_distance=2, threshold_rel=0.5,
-        peak_radius=5))
-    np.testing.assert_allclose(got[:, :2], ref[:, :2], atol=0)
-    np.testing.assert_allclose(got[:, 2:], ref[:, 2:], rtol=1e-3)
-
-  def test_flow_peaks_pallas_no_peak(self):
-    import jax.numpy as jnp
-    from sofima_tpu.ops import pallas_flow
-    a = np.zeros((2, 16, 16), np.float32)
-    got = np.asarray(pallas_flow.flow_peaks_pallas(
-        jnp.asarray(a), jnp.asarray(a), group=2, interpret=True))
-    assert np.isnan(got).all()
-
-  def test_dense_flow_peaks_pallas_rectangular(self):
-    """Non-square image, gy != gx, partial last row step and group."""
-    import jax.numpy as jnp
-    rng = np.random.RandomState(5)
-    h, w = 440, 680  # gy = 8 (odd/rows=2 edge), gx = 14
-    pre = (rng.rand(h, w) * 255).astype(np.float32)
-    post = np.roll(pre, (2, -4), (0, 1))
-    from sofima_tpu.ops import pallas_flow
-    got = np.asarray(pallas_flow.dense_flow_peaks_pallas(
-        jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40),
-        interpret=True))
-    ref = np.asarray(flow_field._dense_flow_strips(
-        jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40),
-        None, 2, 0.5, 5, rows_per_step=2, dft_matmul=True,
-        use_pallas=False))
-    assert got.shape == ref.shape == (4, 8, 14)
-    np.testing.assert_allclose(got, ref, rtol=3e-4, atol=3e-4,
-                               equal_nan=True)
-
-  def test_dense_flow_peaks_pallas_matches_strips(self):
-    """Full-grid kernel (window DMA + in-VMEM patch assembly) vs the
-    XLA strip pipeline, including the clamped last group."""
-    import jax.numpy as jnp
-    rng = np.random.RandomState(3)
-    n = 360  # gy = gx = (360 - 120) // 40 = 6, one partial group
-    noise = rng.rand(n, n).astype(np.float32)
-    f = np.fft.rfft2(noise)
-    fy = np.fft.fftfreq(n)[:, None]
-    fx = np.fft.rfftfreq(n)[None, :]
-    f *= np.exp(-((fx**2 + fy**2) / (2 * 0.08**2)))
-    pre = (np.fft.irfft2(f, s=(n, n)) * 255).astype(np.float32)
-    post = np.roll(pre, (4, -6), (0, 1))
-
-    from sofima_tpu.ops import pallas_flow
-    got = np.asarray(pallas_flow.dense_flow_peaks_pallas(
-        jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40),
-        interpret=True))
-    ref = np.asarray(flow_field._dense_flow_strips(
-        jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40),
-        None, 2, 0.5, 5, rows_per_step=2, dft_matmul=True,
-        use_pallas=False))
-    assert got.shape == ref.shape == (4, 6, 6)
-    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4,
-                               equal_nan=True)
-
-
-class TestMaskedGridKernel:
-
-  def test_masked_dense_flow_peaks_pallas(self):
-    """Masked Padfield NCC in the grid kernel vs the XLA masked path.
-
-    Oracle = the strip path with the whole grid in ONE batch: the
-    reference's 30%-of-max overlap threshold is batch-global, and with
-    a full batch (the production regime) the max equals the patch area
-    — exactly the kernel's deterministic rule. Integer peaks must match
-    exactly; sharpness/ratio are ratio statistics that amplify float
-    noise near zeroed masked regions, so they are compared through the
-    clean_flow quality gates they feed.
-    """
-    import jax.numpy as jnp
-    rng = np.random.RandomState(0)
-    n = 520
-    noise = rng.rand(n, n).astype(np.float32)
-    f = np.fft.rfft2(noise)
-    fy = np.fft.fftfreq(n)[:, None]
-    fx = np.fft.rfftfreq(n)[None, :]
-    f *= np.exp(-((fx**2 + fy**2) / (2 * 0.08**2)))
-    pre = (np.fft.irfft2(f, s=(n, n)) * 255).astype(np.float32)
-    post = np.roll(pre, (3, -5), (0, 1)).copy()
-    post[:140, :140] = rng.rand(140, 140) * 255  # corrupted corner
-    pre_mask = np.zeros((n, n), bool)
-    pre_mask[400:, :] = True
-    post_mask = np.zeros((n, n), bool)
-    post_mask[:140, :140] = True
-
-    ref = np.asarray(flow_field._dense_flow_strips(
-        jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40), None,
-        2, 0.5, 5, rows_per_step=10, dft_matmul=True, use_pallas=False,
-        pre_mask=jnp.asarray(pre_mask), post_mask=jnp.asarray(post_mask)))
-    from sofima_tpu.ops import pallas_flow
-    got = np.asarray(pallas_flow.dense_flow_peaks_pallas(
-        jnp.asarray(pre), jnp.asarray(post), (160, 160), (40, 40),
-        pre_valid=jnp.asarray(~pre_mask, np.float32),
-        post_valid=jnp.asarray(~post_mask, np.float32), interpret=True))
-
-    # Exact integer peaks (including which entries are NaN).
-    np.testing.assert_array_equal(np.nan_to_num(got[:2], nan=9e9),
-                                  np.nan_to_num(ref[:2], nan=9e9))
-    # Quality-gate decisions identical (the downstream contract).
-    for ch, thr in ((2, 1.6), (3, 1.6)):
-      ref_pass = np.nan_to_num(np.abs(ref[ch])) >= thr
-      got_pass = np.nan_to_num(np.abs(got[ch])) >= thr
-      np.testing.assert_array_equal(got_pass, ref_pass)
-    # Bulk numeric agreement away from near-zero denominators.
-    fin = np.isfinite(ref[2]) & np.isfinite(got[2])
-    close = np.abs(got[2][fin] - ref[2][fin]) / (np.abs(ref[2][fin]) + 1)
-    assert (close < 0.01).mean() > 0.9
-
-
 class TestDenseFlow3d:
   """Round-3: device-resident circular 3d strip path."""
 
@@ -606,3 +448,101 @@ class TestDenseFlow3d:
     assert float(np.nanmedian(out[0])) == 6.0   # x
     assert float(np.nanmedian(out[1])) == -5.0  # y
     assert float(np.nanmedian(out[2])) == 1.0   # z
+
+
+def _band_limited(h, w, seed):
+  rng = np.random.RandomState(seed)
+  f = np.fft.rfft2(rng.rand(h, w).astype(np.float32))
+  fy = np.fft.fftfreq(h)[:, None]
+  fx = np.fft.rfftfreq(w)[None, :]
+  f *= np.exp(-((fx**2 + fy**2) / (2 * 0.08**2)))
+  img = np.fft.irfft2(f, s=(h, w)).astype(np.float32)
+  return (img - img.min()) / np.ptp(img) * 255.0
+
+
+class TestTargetedFlowPeaks:
+  """XLA targeted fine pass (per-node integer post offsets)."""
+
+  SHIFT = (5, -7)  # (y, x) roll of post relative to pre
+
+  def _pair(self):
+    pre = _band_limited(400, 440, seed=4)
+    return pre, np.roll(pre, self.SHIFT, (0, 1))
+
+  def _offsets(self, kind, grid):
+    flow_yx = -np.asarray(self.SHIFT)
+    if kind == 'zero':
+      return np.zeros(grid + (2,), np.int32)
+    if kind == 'uniform':
+      return np.broadcast_to(-flow_yx, grid + (2,)).astype(np.int32)
+    rng = np.random.RandomState(0)
+    return (-flow_yx + rng.randint(-3, 4, grid + (2,))).astype(np.int32)
+
+  @pytest.mark.parametrize('fine', [64, 80])
+  @pytest.mark.parametrize('peak_crop', [None, 32])
+  @pytest.mark.parametrize('kind', ['zero', 'uniform', 'per_node'])
+  def test_matches_dense_flow_field(self, kind, peak_crop, fine):
+    import jax.numpy as jnp
+    pre, post = self._pair()
+    step = (40, 40)
+    ref = np.asarray(flow_field.dense_flow_field(
+        jnp.asarray(pre), jnp.asarray(post), (fine, fine), step,
+        circular=True, dft_matmul=True))
+    grid = ref.shape[1:]
+    offs = self._offsets(kind, grid)
+    got = np.asarray(flow_field.targeted_flow_peaks(
+        jnp.asarray(pre), jnp.asarray(post), jnp.asarray(offs),
+        (fine, fine), step, max_offset=16, peak_crop=peak_crop))
+    assert got.shape == ref.shape
+    # Absolute flow = peak relative to the shifted patch - the offset.
+    got_abs = np.stack([got[0] - offs[..., 1], got[1] - offs[..., 0]])
+    inner = np.s_[:, 1:-1, 1:-1]
+    np.testing.assert_array_equal(got_abs[inner], ref[:2][inner])
+    flow_xy = (-self.SHIFT[1], -self.SHIFT[0])
+    assert (got_abs[0][inner[1:]] == flow_xy[0]).all()
+    assert (got_abs[1][inner[1:]] == flow_xy[1]).all()
+    if kind == 'zero' and peak_crop is None:
+      # Same patches, same arithmetic: the statistics agree too.
+      np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+  @pytest.mark.parametrize('name,peak_crop,bf16', [
+      ('full_f32', None, False), ('crop32_bf16', 32, True)])
+  def test_matches_golden(self, name, peak_crop, bf16):
+    # Recorded from the former grouped-window kernel with offsets that
+    # are constant within each of its windows; the twin gets the same
+    # offsets expanded to every node, so the integer peaks must agree
+    # exactly.
+    import os
+    import jax.numpy as jnp
+    golden = np.load(os.path.join(os.path.dirname(__file__), 'golden',
+                                  'targeted_flow_peaks.npz'))
+    ref = golden[name]
+    got = np.asarray(flow_field.targeted_flow_peaks(
+        jnp.asarray(golden['pre'], jnp.float32),
+        jnp.asarray(golden['post'], jnp.float32),
+        jnp.asarray(golden['offsets']), (80, 80), (40, 40), max_offset=8,
+        bf16=bf16, peak_crop=peak_crop))
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(got[:2], ref[:2])
+    np.testing.assert_array_equal(np.isnan(got[2:]), np.isnan(ref[2:]))
+    sharp = np.abs(got[2] - ref[2]) / np.abs(ref[2])
+    if bf16:
+      # bf16 matmul inputs: the kernel rounded raw pixels (mean removed
+      # in the spectrum), the twin rounds mean-removed pixels, so the
+      # sharpness statistic carries bf16 noise.
+      assert np.median(sharp) < 0.02, np.median(sharp)
+    else:
+      np.testing.assert_allclose(got[2:], ref[2:], rtol=1e-3)
+
+  @pytest.mark.parametrize('batch_size', [7, 4096])
+  def test_batch_padding(self, batch_size):
+    import jax.numpy as jnp
+    pre, post = self._pair()
+    offs = self._offsets('per_node', (9, 10))
+    args = (jnp.asarray(pre), jnp.asarray(post), jnp.asarray(offs),
+            (80, 80), (40, 40))
+    ref = np.asarray(flow_field.targeted_flow_peaks(*args, max_offset=16,
+                                                    batch_size=90))
+    got = np.asarray(flow_field.targeted_flow_peaks(
+        *args, max_offset=16, batch_size=batch_size))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, equal_nan=True)

@@ -168,3 +168,76 @@ class TestConfig:
     text = cfg.to_json()
     back = mesh.IntegrationConfig.from_json(text)
     assert back == cfg
+
+
+def _force_oracle(x, links, k_eff, stride_xyz, prefer_orig_order):
+  """Per-link NumPy loop twin of mesh._spring_force (trailing grid axes)."""
+  x = np.asarray(x, np.float64)
+  dim = x.shape[0]
+  grid = x.shape[-dim:]
+  out = np.zeros_like(x)
+  for idx in np.ndindex(*grid):
+    for direction, k in zip(links, k_eff):
+      e_zyx = direction[::-1]
+      jdx = tuple(i + e for i, e in zip(idx, e_zyx))
+      if not all(0 <= j < n for j, n in zip(jdx, grid)):
+        continue
+      l0_vec = np.array([stride_xyz[c] * direction[c] for c in range(dim)])
+      l0 = np.linalg.norm(l0_vec)
+      sel_i = (Ellipsis,) + idx
+      sel_j = (Ellipsis,) + jdx
+      xi = x[sel_i]
+      xj = x[sel_j]
+      d = xj - xi + l0_vec.reshape((dim,) + (1,) * (xi.ndim - 1))
+      length = np.sqrt(np.sum(d * d, axis=0))
+      with np.errstate(all='ignore'):
+        if prefer_orig_order:
+          factor = np.stack([
+              direction[c] * np.sign(d[c]) if direction[c] != 0
+              else np.ones_like(d[c]) for c in range(dim)])
+          f = -k * (1.0 - l0 * factor / length) * d
+        else:
+          f = -k * (1.0 - l0 / length) * d
+      f = np.nan_to_num(f, nan=0.0, posinf=0.0, neginf=0.0)
+      out[sel_j] += f
+      out[sel_i] -= f
+  return out
+
+
+class TestSpringForceOracle:
+  """XLA spring stencils vs a per-link NumPy loop."""
+
+  @pytest.mark.parametrize('stride', [(40.0, 40.0), (30.0, 50.0)])
+  @pytest.mark.parametrize('prefer_orig_order', [False, True])
+  @pytest.mark.parametrize('nan_nodes', [False, True])
+  def test_inplane_force(self, nan_nodes, prefer_orig_order, stride):
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 2, 6, 7).astype(np.float32) * 5
+    x[0, 0, 3, 3] = -60.0  # a folded node
+    if nan_nodes:
+      x[:, 0, 2, 4] = np.nan
+      x[:, 1, 0, :2] = np.nan
+    got = np.asarray(mesh.inplane_force(jnp.asarray(x), 0.1, stride,
+                                        prefer_orig_order))
+    k_diag = 0.1 / np.sqrt(2.0)
+    ref = _force_oracle(x, mesh.INPLANE_LINK_DIRECTIONS,
+                        (0.1, 0.1, k_diag, k_diag), stride,
+                        prefer_orig_order)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+  @pytest.mark.parametrize('stride', [(40.0, 40.0, 40.0),
+                                      (40.0, 30.0, 20.0)])
+  @pytest.mark.parametrize('prefer_orig_order', [False, True])
+  def test_elastic_mesh_3d(self, prefer_orig_order, stride):
+    rng = np.random.RandomState(1)
+    x = rng.randn(3, 4, 5, 6).astype(np.float32) * 5
+    x[:, 1, 2, 3] = np.nan
+    x[0, 2, 2, 2] = -50.0
+    got = np.asarray(mesh.elastic_mesh_3d(jnp.asarray(x), 0.2, stride,
+                                          prefer_orig_order))
+    k_eff = [0.2 * stride[0] / np.linalg.norm(
+        [stride[c] * d[c] for c in range(3)])
+             for d in mesh.MESH_LINK_DIRECTIONS]
+    ref = _force_oracle(x, mesh.MESH_LINK_DIRECTIONS, k_eff, stride,
+                        prefer_orig_order)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)

@@ -19,7 +19,7 @@ NOTEBOOKS = ['em_alignment.ipynb', 'liconn_inplane_stitching.ipynb']
 @pytest.mark.parametrize('name', NOTEBOOKS)
 def test_notebook_executes(name, monkeypatch):
   path = os.path.join(REPO, 'notebooks', name)
-  monkeypatch.setenv('SOFIMA_TPU_NB_CPU', '1')
+  monkeypatch.setenv('SOFIMA_NB_CPU', '1')
   monkeypatch.setenv('MPLBACKEND', 'Agg')
   with open(path) as f:
     nb = json.load(f)

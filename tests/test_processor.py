@@ -451,7 +451,7 @@ class TestEstimateFlowCoarseToFine:
 class TestEstimateFlowDefaultMode:
 
   def test_default_is_fast_and_parity_gated(self):
-    # The production default flow_mode is the parity-gated TPU fast
+    # The production default flow_mode is the parity-gated fast strip
     # path, not the padfield oracle (VERDICT r3 item 8); padfield stays
     # available as the explicit oracle mode and the default's output
     # must match it on clean data.

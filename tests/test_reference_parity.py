@@ -1,7 +1,7 @@
 """Numerical parity against the reference implementation (test oracle).
 
 Loads the reference modules from /root/reference (read-only) with shimmed
-`connectomics` dependencies and compares outputs of our TPU-native
+`connectomics` dependencies and compares outputs of our JAX
 implementations on random inputs. Skipped when the reference tree is not
 mounted. The reference code is used strictly as an oracle — nothing from
 it ships in the package.

@@ -63,7 +63,7 @@ class TestFlowMap3d:
     assert off[0] == -24
 
   def test_circular_mode_matches_padfield(self):
-    # Round-3 TPU fast path: flow_mode='circular' routes overlap pairs
+    # Device fast path: flow_mode='circular' routes overlap pairs
     # through the device-resident 3d strip kernel; integer peaks must
     # match the scattered-start padfield driver.
     vol = _texture3d((40, 64, 104))
